@@ -1,4 +1,4 @@
-"""Browser demo: the TPU-native counterpart of the reference's JS⇄WASM demo
+"""Browser demo: the batched-JAX counterpart of the reference's JS⇄WASM demo
 (``/root/reference/wasm/demo/index.html``, bindings
 ``/root/reference/src/wasm.rs:6-269``).
 

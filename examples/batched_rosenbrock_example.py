@@ -1,10 +1,10 @@
 """The capability the single-instance reference lacks: 1024 Rosenbrock-100
-instances solved in lockstep — here through the fused Pallas kernel (whole
-solves resident in VMEM; see BENCH_NOTES.md for measured throughput).
+instances solved in lockstep through the one-call front end
+(``ost.minimize`` with a (B, n) ``x0`` -> one compiled ``lax.while_loop``
+for the whole batch).
 
-Runs on whatever accelerator JAX sees (first TPU compile takes minutes;
-it's cached under /tmp/jax_cache).  On CPU the same kernel runs in
-interpreter mode.
+Runs on whatever device JAX sees, in f32; the compile cache lives where
+``$JAX_COMPILATION_CACHE_DIR`` says, else in the checkout's ``.jax_cache``.
 """
 
 import os
@@ -13,29 +13,21 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-
 import jax.numpy as jnp
 import numpy as np
 
+import optimization_solvers_tpu as ost
 from optimization_solvers_tpu.core import problems
-from optimization_solvers_tpu.ops.pallas_lbfgsb import lbfgsb_solve_fused
 from optimization_solvers_tpu.utils import summarize
+from optimization_solvers_tpu.utils.runtime import enable_compile_cache
 
+enable_compile_cache()
 n, batch = 100, 1024
-on_tpu = jax.devices()[0].platform == "tpu"
-tile = 256 if on_tpu else 64
-
 x0 = jnp.asarray(np.random.RandomState(0).uniform(-2, 2, (batch, n)),
                  jnp.float32)
-res = lbfgsb_solve_fused(
-    problems.rosenbrock(), x0,
-    jnp.full(n, -5.0, jnp.float32), jnp.full(n, 5.0, jnp.float32),
-    m=5, pgtol=1e-3, factr=100.0, max_iter=600, tile=tile,
-    interpret=not on_tpu,
-)
+res = jax.jit(lambda x: ost.minimize(
+    problems.rosenbrock(), x, method="lbfgsb", bounds=(-5.0, 5.0),
+    tol=1e-3, m=5, factr=100.0, max_iter=600))(x0)
 stats = summarize(res)
 print(stats)
 assert stats["converged"] == batch

@@ -9,9 +9,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-# the reference examples are f64 on CPU; TPU v5e has no native f64, so the
-# parity examples pin the CPU backend (see batched_rosenbrock_example.py for
-# the accelerator-resident f32 path)
+# the reference examples are f64 on CPU, so the parity examples pin the CPU
+# backend in x64 (see batched_rosenbrock_example.py for the
+# accelerator-resident f32 path)
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 

@@ -1,14 +1,12 @@
 """Large-n bounded L-BFGS-B (the BASELINE config-4 workload class): a
 10,000-dimensional bounded log-sum-exp batch through the one-call front
-end, which on TPU auto-routes to the tall-layout fused kernel
-(``ops/pallas_lbfgsb_tall.py`` — instances on sublanes, generalized Cauchy
-point by segment bisection; measured 3.5x the lockstep XLA path).
+end (the lockstep batched L-BFGS-B).
 
 Reference capability: the Fortran ``setulb_`` core reached from
-``/root/reference/src/quasi_newton/lbfgsb.rs:34-85`` (one instance at a
-time on the CPU).  Run: ``python large_n_lbfgsb_example.py`` — shapes are
-scaled down by default so the example also runs on CPU in seconds; pass
-``--full`` on a TPU box for the real 10k-dim batch.
+``src/quasi_newton/lbfgsb.rs:34-85`` (one instance at a time on the CPU).
+Run: ``python large_n_lbfgsb_example.py`` — shapes are scaled down by
+default so the example also runs on CPU in seconds; pass ``--full`` on a
+GPU for the real 10k-dim batch.
 """
 
 import sys
@@ -39,7 +37,7 @@ def lse(x, A_, b_):
 x0 = jnp.asarray(
     np.random.RandomState(4).uniform(-0.5, 0.5, (B, n)), jnp.float32)
 
-# problem data rides `data=` so it can cross the fused-kernel boundary
+# problem data rides `data=` instead of the objective's closure
 res = ost.minimize(lse, x0, method="lbfgsb", bounds=(-1.0, 1.0),
                    data=(A, b), m=10, pgtol=1e-5, factr=1e3, max_iter=200)
 

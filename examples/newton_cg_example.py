@@ -1,20 +1,18 @@
-"""Truncated Newton-CG (matrix-free second-order; TPU-native extension of
+"""Truncated Newton-CG (matrix-free second-order; a batched extension of
 the reference's Newton family, newton/projected_newton.rs:64-80) on bounded
-Rosenbrock-32: Hessian-vector products instead of (n, n) factorizations,
-so the second-order step scales to large n."""
+Rosenbrock-32 through the one-call front end: Hessian-vector products
+instead of (n, n) factorizations, so the second-order step scales to large
+n."""
 from common import *
 
-import numpy as np
-
+import optimization_solvers_tpu as ost
 from optimization_solvers_tpu.core import problems
-from optimization_solvers_tpu.ops.pallas_newton_cg import newton_cg_solve_fused
 
 n = 32
 f = problems.rosenbrock()
 x0 = jnp.tile(jnp.asarray([-1.2, 1.0]), n // 2)[None, :]
-res = newton_cg_solve_fused(
-    f, x0, jnp.full(n, -2.0), jnp.full(n, 2.0),
-    pgtol=1e-8, factr=0.0, max_iter=300, cg_max=48, tile=1, interpret=True)
+res = ost.minimize(f, x0, method="newton_cg", bounds=(-2.0, 2.0), tol=1e-8,
+                   factr=0.0, max_iter=300, cg_max=48)
 
 one = jax.tree.map(lambda a: a[0], res)
 report("newton_cg", one, f)

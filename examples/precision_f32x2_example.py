@@ -1,8 +1,8 @@
-"""f32x2 emulated-f64 precision on f32-only hardware (round 5).
+"""f32x2: emulated f64 for f32 inputs (round 5).
 
 The reference certifies grad_tol 1e-6 because it computes in f64
-(``src/number.rs:3``).  On TPU v5e (f32 only) a plain solve hits the ~2e-4
-certification wall (docs/tpu_accuracy.md); ``precision="f32x2"`` runs the
+(``src/number.rs:3``).  A plain f32 solve hits a ~2e-4 certification
+wall; ``precision="f32x2"`` runs the
 fast f32 path first, then polishes every lane with a double-float BFGS
 (solvers/df_polish.py) whose oracle is re-evaluated in (hi, lo) f32-pair
 arithmetic — delivering the reference-grade 1e-6 certificate at the pair
@@ -34,7 +34,7 @@ def rosen(x):
 
 B, n = 16, 50
 x0 = jnp.asarray(np.random.RandomState(0).uniform(-2, 2, (B, n)),
-                 jnp.float32)                       # f32: the TPU dtype
+                 jnp.float32)                       # f32: the GPU working dtype
 
 # plain f32: the strict tolerance is NOT certifiable (MAX_ITER / STALLED)
 plain = ost.minimize(rosen, x0, method="bfgs", tol=1e-6, max_iter=2000)

@@ -2,8 +2,8 @@
 (``SpectralProjectedNewton(precond_bb=True)``) — a capability extension
 over the reference's SPN (``/root/reference/src/newton/spn.rs:139-148``),
 whose gradient-metric BB scalar freezes at the inverse Rayleigh quotient
-of the Newton ray on quadratics (see PARITY.md L3 and BENCH_NOTES
-round 3: conv 0.785 at a 300-iteration budget, identically in f64).
+of the Newton ray on quadratics (see PARITY.md L3; the stall is
+identical in f64).
 
 The Newton-metric pair ``lambda = s.s / s.(H^{-1}y)`` is exactly 1 on a
 quadratic, recovering the projected-Newton step: the same problem

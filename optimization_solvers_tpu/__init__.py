@@ -1,18 +1,18 @@
-"""TPU-native smooth-optimization solver suite (JAX/XLA/Pallas/pjit).
+"""Batched smooth-optimization solver suite (JAX/XLA/pjit).
 
 A brand-new, batched, device-resident re-design of the capabilities of the
 reference Rust crate ``fedemagnani/optimization-solvers`` (see /root/reference):
 line-search based solvers for unconstrained and box-constrained convex
 minimization.  Where the reference runs one f64 problem instance per call on a
-single CPU core, this framework vmaps thousands of instances per TPU chip,
-shards them over multi-host device meshes with ``jax.sharding`` and drives
+single CPU core, this framework vmaps thousands of instances per device,
+shards them over multi-device meshes with ``jax.sharding`` and drives
 every solve with a device-resident ``lax.while_loop`` (no host round-trips).
 
 Layer map (mirrors SURVEY.md §1):
   core/       -- FuncEval pytree, oracle factory, box projection, norms (ref L0/L1)
   linesearch/ -- batched backtracking / GLL / More-Thuente (+bounded)   (ref L2)
   solvers/    -- generic driver + 13 solver families + L-BFGS-B          (ref L3/L4)
-  ops/        -- Pallas kernels for the dense linear-algebra cores
+  ops/        -- dense linear-algebra cores (Cholesky solves)
   parallel/   -- mesh / sharding / collectives layer (new capability)
   utils/      -- telemetry, plotting, result types                       (ref L5)
 """

@@ -1,19 +1,20 @@
 """Double-float ("f32x2") arithmetic: emulated-f64 precision from f32 ops.
 
 The reference computes everything in f64 (``/root/reference/src/number.rs:3``,
-``type Floating = f64``).  TPU v5e has no native f64 — the VPU is f32 — so
-this module provides the TPU-native answer: each scalar is an unevaluated
+``type Floating = f64``).  This module emulates f64-grade precision for
+f32 inputs while computing only in f32: each scalar is an unevaluated
 pair ``hi + lo`` of f32 with ``|lo| <= ulp(hi)/2``, carried through
 error-free transformations (Dekker/Knuth two_sum / two_prod; Bailey/Hida
 double-double add/mul/div/sqrt).  Working precision is ~2^-47 relative
 (~1.4e-14) — slightly under true f64 (2^-53) but 6-7 decimal digits beyond
 plain f32, which is what the strict-tolerance certification wall needs
-(docs/tpu_accuracy.md: f32 gradients carry ~1e-4 absolute cancellation
-noise on the Rosenbrock class; a pg < 1e-6 certificate is unreachable).
+(f32 gradients carry ~1e-4 absolute cancellation noise on the Rosenbrock
+class; a pg < 1e-6 certificate is unreachable in plain f32).
 
 All functions are elementwise on arrays and shape-polymorphic, jit/vmap
-compatible, and use only f32 VPU ops (adds, muls, selects) — nothing here
-touches the MXU, so no bf16 demotion can leak in.  XLA preserves IEEE f32
+compatible, and use only elementwise f32 ops (adds, muls, selects) —
+nothing here is a matrix product, so no reduced-precision (TF32) tensor-core
+pass can leak in.  XLA preserves IEEE f32
 semantics for these ops by default; the error-free transforms rely on that
 (and NOT on reassociation being disabled anywhere special).
 
@@ -125,8 +126,8 @@ def from_f32(hi, lo=None) -> DF:
 
 def from_f64(x) -> DF:
     """Split a host-side f64 array into (hi, lo) f32 pairs exactly
-    (to f32x2 resolution).  Host/test helper — on TPU there is no f64 to
-    split; on-device values enter via :func:`from_f32`."""
+    (to f32x2 resolution).  Host/test helper — the solve itself stays in
+    f32; on-device values enter via :func:`from_f32`."""
     import numpy as np
 
     x = np.asarray(x, np.float64)
@@ -305,8 +306,8 @@ def tree_sum(x: DF, axis: int = -1) -> DF:
 def dot(x: DF, y: DF, axis: int = -1) -> DF:
     """df inner product: exact per-element products (two_prod) + pairwise
     tree accumulation.  The f32x2 sibling of ``core.numerics.dot`` (which
-    exists because TPU f32 ``@`` demotes to bf16 — here nothing touches
-    the MXU at all)."""
+    exists because an f32 ``@`` may run in TF32 — here no matrix product
+    is used at all)."""
     return tree_sum(mul(x, y), axis=axis)
 
 

@@ -1,20 +1,20 @@
 """Evaluate a traced JAX objective (and its gradient) in f32x2 double-float.
 
 The reference gets f64 oracles for free from the language
-(``/root/reference/src/number.rs:3``); TPU v5e has no f64.  This module is
-the TPU-native replacement: trace the user's objective (or its
+(``src/number.rs:3``).  This module emulates that precision for f32 inputs:
+trace the user's objective (or its
 ``value_and_grad``) to a jaxpr once, then *interpret* that jaxpr with every
 float flowing as a :class:`~optimization_solvers_tpu.core.df.DF` pair —
 error-free-transform arithmetic, pairwise-tree reductions, near-df
 transcendentals.  The result is the objective/gradient of the SAME f32
 program evaluated to ~2^-47 relative precision: the cancellation noise that
 capped f32 gradient accuracy at ~1e-4 absolute on the Rosenbrock class
-(docs/tpu_accuracy.md) vanishes, which is what lets a pg < 1e-6 stationarity
-certificate exist on TPU at all.
+vanishes, which is what lets a pg < 1e-6 stationarity certificate exist for
+an f32 solve at all.
 
 This is a jaxpr interpreter in the standard JAX-transform style (compare
 ``jax.experimental.jet`` or custom tracers): it runs at *trace* time inside
-whatever jit/vmap/scan surrounds it, emitting ordinary f32 VPU ops — so the
+whatever jit/vmap/scan surrounds it, emitting ordinary f32 ops — so the
 df oracle batches, shards, and fuses like any other JAX code.
 
 Known, documented deviation from true f64 semantics: Python/f32 literals in
@@ -100,7 +100,7 @@ def _reduce(x: DF, axes, combine, pad_hi) -> DF:
 
 def _dot_general(lhs: DF, rhs: DF, dimension_numbers, **_) -> DF:
     """df dot_general: exact per-element products + pairwise-tree contraction
-    (the MXU is never touched — by design, bf16 demotion cannot leak in;
+    (no matrix product is used — by design, a TF32 pass cannot leak in;
     same rationale as ``core.numerics.dot``)."""
     (lc, rc), (lb, rb) = dimension_numbers
 

@@ -1,9 +1,9 @@
 """Vector substrate: box projection, norms, safe clamps.
 
-TPU-native equivalent of the reference L0 layer
+Batched equivalent of the reference L0 layer
 (``/root/reference/src/number.rs:5-31``).  Everything is shape-polymorphic
 jnp code that vectorizes under ``vmap`` and shards under ``pjit``; the
-reference's per-element Rust loops become VPU-wide elementwise ops.
+reference's per-element Rust loops become elementwise array ops.
 """
 
 from __future__ import annotations
@@ -67,19 +67,22 @@ def rust_clamp(t: jax.Array, t_min, t_max) -> jax.Array:
 
 
 def dot(a: jax.Array, b: jax.Array) -> jax.Array:
-    """Last-axis inner product computed elementwise on the VPU.
+    """Last-axis inner product as an elementwise multiply-reduce.
 
-    On TPU, ``a @ b`` lowers to a DEFAULT-precision dot_general whose f32
-    inputs are demoted to bfloat16 on the MXU — an 8-bit mantissa that
-    destroys the curvature dot products (s.y, y.y, g.d) every quasi-Newton
-    update depends on.  An elementwise multiply-reduce keeps full f32.
+    On a GPU, ``a @ b`` in float32 lowers to a DEFAULT-precision
+    dot_general that XLA may run on the tensor cores in TF32 — a 10-bit
+    mantissa, about three decimal digits, which destroys the curvature dot
+    products (s.y, y.y, g.d) every quasi-Newton update depends on.  An
+    elementwise multiply-reduce never touches the tensor cores and keeps
+    full f32.
     """
     return jnp.sum(a * b, axis=-1)
 
 
 def matvec(A: jax.Array, x: jax.Array) -> jax.Array:
-    """``A @ x`` over the last two axes at HIGHEST precision (true-f32 MXU
-    passes instead of the default single bf16 pass; see :func:`dot`)."""
+    """``A @ x`` over the last two axes at HIGHEST precision (true f32
+    instead of the TF32 a DEFAULT-precision f32 product may use; see
+    :func:`dot`)."""
     return jnp.einsum(
         "...ij,...j->...i", A, x, precision=jax.lax.Precision.HIGHEST
     )
@@ -95,8 +98,7 @@ def matmat(A: jax.Array, B: jax.Array) -> jax.Array:
 def batched_pg_inf_norm(x, g, lower=None, upper=None):
     """Per-row stationarity measure over a trailing coordinate axis:
     ``||x - P_box(x - g)||_inf`` (plain ``||g||_inf`` when unbounded) — the
-    Fortran's ``sbgnrm``, used to fill ``SolveResult.pg_norm`` from the
-    fused kernels' host epilogues."""
+    Fortran's ``sbgnrm``, used to fill ``SolveResult.pg_norm``."""
     if lower is None:
         return jnp.max(jnp.abs(g), axis=-1)
     return jnp.max(jnp.abs(x - jnp.clip(x - g, lower, upper)), axis=-1)

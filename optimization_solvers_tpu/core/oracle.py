@@ -1,6 +1,6 @@
 """Oracle layer: autodiff function-evaluation protocol.
 
-TPU-native re-design of the reference oracle seam
+Batched re-design of the reference oracle seam
 (``/root/reference/src/func_eval.rs:5-41``): the reference takes user closures
 ``FnMut(&DVector<f64>) -> FuncEvalMultivariate`` with *analytic* gradients and
 no autodiff anywhere.  Here the default path is a jitted
@@ -66,11 +66,8 @@ def make_oracle(
     all fused by XLA into the surrounding jitted solve.
 
     ``data`` carries problem-data arrays explicitly: the objective is called
-    as ``f(x, *data)``.  Keeping the data out of Python closures (the
-    JAX-idiomatic split of code vs. arrays, same shape as flax's
-    params-outside-module) is what lets the fused whole-solve Pallas kernels
-    accept it as kernel operands — a closure-captured array cannot cross the
-    ``pallas_call`` boundary and forces the slow vmapped fallback.
+    as ``f(x, *data)`` (the JAX-idiomatic split of code vs. arrays, same
+    shape as flax's params-outside-module).
     """
     data = tuple(jax.numpy.asarray(c) for c in data)
     f_x = (lambda x: f(x, *data)) if data else f
@@ -83,11 +80,6 @@ def make_oracle(
         return FuncEval(fv, g, h)
 
     oracle = Oracle(full, value_fn=f_x)
-    # keep the raw scalar objective + data around: the fused whole-solve
-    # kernels (ops/pallas_driver.py and friends) trace ``f`` directly into
-    # the kernel and pass ``data`` as consts operands
-    oracle.raw_f = f
-    oracle.data = data
 
     # Hessian-vector products via forward-over-reverse (~2 gradient
     # evaluations, no (n, n) storage) — the matrix-free second-order seam

@@ -1,6 +1,6 @@
 """Core pytree types: oracle evaluations, solve results, status codes.
 
-TPU-native re-design of the reference oracle protocol
+Batched re-design of the reference oracle protocol
 (``/root/reference/src/func_eval.rs:5-41``): instead of a Rust struct returned
 by a user closure, a :class:`FuncEval` is a JAX pytree so it can flow through
 ``jit`` / ``vmap`` / ``lax.while_loop`` carries unchanged.
@@ -88,18 +88,6 @@ class SolveResult(NamedTuple):
     # grad_tol 1e-6 (|g| quantizes in steps of ~L*eps*|x|); status/pg_norm
     # refer to the PAIR.  None on plain-precision paths.
     x_lo: Optional[jax.Array] = None
-    # tall-kernel GCP guard (round 5): True on lanes where the segment
-    # bisection could NOT certify its single-crossing assumption (bracket
-    # budget exhausted in a small bracket — the path derivative is
-    # non-monotone at f32 granularity there).  Conservative by design:
-    # measured 78% precision / ~23% recall for actual walk-backend
-    # divergence on an adversarial multimodal class, and ~88% benign
-    # firing on the config-4 class whose iterates match the walk backend
-    # — read as "parity not certified", never "result wrong"; the
-    # authoritative check is the XLA walk-backend comparison (kernel
-    # docstring + BENCH_NOTES round 5 for the full calibration).  None on
-    # paths without the guard.
-    gcp_multimodal: Optional[jax.Array] = None
 
     @property
     def converged(self) -> jax.Array:

@@ -94,7 +94,7 @@ class MoreThuente(LineSearch):
     # strong-Wolfe test: near a minimizer the f32 difference f(x+td) - f0
     # is pure cancellation noise, the Armijo half of strong Wolfe becomes
     # undecidable, and MT's interval collapses to sub-ulp steps (the
-    # L-BFGS+MT livelock, BENCH_NOTES round 3).  T2 replaces it with the
+    # L-BFGS+MT livelock).  T2 replaces it with the
     # derivative-only test (2c1-1)phi'(0) >= phi'(t) >= c2 phi'(0) plus the
     # f <= f0 + aw_eps|f0| membership (CG_DESCENT 2005, eq. 4.1) — exactly
     # what linesearch/hager_zhang.py does natively.  Default OFF: reference

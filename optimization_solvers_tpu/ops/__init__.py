@@ -1,52 +1,9 @@
-"""Compute kernels: XLA-native defaults with Pallas TPU overrides, plus the
-fused whole-solve kernels (the production TPU path)."""
+"""Compute kernels: dense SPD solves (XLA / cuSOLVER) and the unrolled
+small-matrix Cholesky the L-BFGS-B middle matrix uses."""
 
-from optimization_solvers_tpu.ops.linalg import cholesky_solve, config, solve_spd
-
-
-def __getattr__(name):
-    # lazy: the fused kernels import pallas machinery
-    if name == "lbfgs_solve_fused":
-        from optimization_solvers_tpu.ops.pallas_lbfgs import lbfgs_solve_fused
-        return lbfgs_solve_fused
-    if name == "lbfgsb_solve_fused":
-        from optimization_solvers_tpu.ops.pallas_lbfgsb import lbfgsb_solve_fused
-        return lbfgsb_solve_fused
-    if name == "lbfgsb_solve_fused_scaled":
-        from optimization_solvers_tpu.ops.pallas_lbfgsb import (
-            lbfgsb_solve_fused_scaled,
-        )
-        return lbfgsb_solve_fused_scaled
-    if name == "spg_solve_fused":
-        from optimization_solvers_tpu.ops.pallas_spg import spg_solve_fused
-        return spg_solve_fused
-    if name == "bfgs_solve_fused":
-        from optimization_solvers_tpu.ops.pallas_bfgs import bfgs_solve_fused
-        return bfgs_solve_fused
-    if name == "newton_cg_solve_fused":
-        from optimization_solvers_tpu.ops.pallas_newton_cg import (
-            newton_cg_solve_fused,
-        )
-        return newton_cg_solve_fused
-    if name == "fused_minimize":
-        from optimization_solvers_tpu.ops.pallas_driver import fused_minimize
-        return fused_minimize
-    if name == "fused_supported":
-        from optimization_solvers_tpu.ops.pallas_driver import fused_supported
-        return fused_supported
-    raise AttributeError(name)
-
+from optimization_solvers_tpu.ops.linalg import cholesky_solve, solve_spd
 
 __all__ = [
     "cholesky_solve",
     "solve_spd",
-    "config",
-    "lbfgs_solve_fused",
-    "lbfgsb_solve_fused",
-    "lbfgsb_solve_fused_scaled",
-    "spg_solve_fused",
-    "bfgs_solve_fused",
-    "newton_cg_solve_fused",
-    "fused_minimize",
-    "fused_supported",
 ]

@@ -1,57 +1,20 @@
 """Dense linear-algebra cores (reference L4-adjacent: the nalgebra
 inverse/Cholesky calls at ``newton/mod.rs:36``, ``projected_newton.rs:75``,
-``spn.rs:86``).
-
-This module is the dispatch seam between XLA-native factorizations and the
-Pallas TPU kernels in :mod:`optimization_solvers_tpu.ops.pallas_newton`.
-On TPU, problems small enough to keep H in VMEM use the fused
-factor+solve kernel (one HBM read of H per solve); elsewhere, or for large
-n, ``lax.linalg`` does the work.  Set :data:`config.use_pallas` to force
-either path.
+``spn.rs:86``).  ``jnp.linalg.cholesky`` plus two triangular solves; XLA
+hands both to cuSOLVER on the GPU.
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
-
-
-@dataclasses.dataclass
-class _Config:
-    # Pallas factor+solve is opt-in (config.use_pallas = True): inside a
-    # vmapped while_loop its masked-update formulation compiles
-    # pathologically slowly under Mosaic.  The standalone fused solver
-    # kernels (ops.pallas_lbfgs / ops.pallas_lbfgsb) are the production
-    # TPU path; this seam serves explicit experimentation.
-    use_pallas: bool | None = False
-    max_pallas_n: int = 512
-
-
-config = _Config()
-
-
-def _want_pallas(n: int) -> bool:
-    if config.use_pallas is not None:
-        return config.use_pallas
-    return jax.default_backend() == "tpu" and n <= config.max_pallas_n
 
 
 def cholesky_solve(h: jax.Array, g: jax.Array) -> jax.Array:
     """Solve ``H s = g`` for SPD ``H`` via Cholesky (the reference's
     ``hessian.cholesky().unwrap().solve(g)``).  Non-PD ``H`` produces NaNs
     (XLA semantics) rather than a panic.  Broadcasts over leading batch
-    dims; dispatches to the fused Pallas kernel on TPU."""
-    n = h.shape[-1]
-    if _want_pallas(n):
-        from optimization_solvers_tpu.ops.pallas_newton import (
-            cholesky_solve_pallas,
-        )
-
-        if h.ndim <= 3:
-            return cholesky_solve_pallas(h, g)
-
+    dims."""
     chol = jnp.linalg.cholesky(h)
     y = jax.scipy.linalg.solve_triangular(chol, g, lower=True)
     return jax.scipy.linalg.solve_triangular(

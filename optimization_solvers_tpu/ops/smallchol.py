@@ -1,10 +1,11 @@
 """Small-matrix Cholesky and triangular solves, unrolled in pure jnp.
 
-The L-BFGS-B middle matrix is 2m x 2m with m in [3, 20]; XLA's generic
-LU/Cholesky lowerings on TPU are overkill there (slow to compile under
-vmap and, at DEFAULT precision, numerically bf16).  For such tiny systems
-an unrolled Cholesky-Crout over the static dimension is a handful of VPU
-ops per column, bitwise-identical across CPU/TPU, and trivially batchable.
+The L-BFGS-B middle matrix is 2m x 2m with m in [3, 20]; a generic
+batched LU/Cholesky library call is overkill there (slow to compile under
+vmap, one library launch per factorization).  For such tiny systems an
+unrolled Cholesky-Crout over the static dimension is a handful of
+elementwise ops per column that XLA fuses into the surrounding step, and
+it batches trivially.
 
 All functions broadcast over leading batch axes; the matrix dimension is
 static and fully unrolled.  Solves take matrix right-hand sides of shape

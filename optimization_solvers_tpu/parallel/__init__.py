@@ -8,9 +8,6 @@ from optimization_solvers_tpu.parallel.sharded import (
     scaling_report,
     sharded_batch_minimize,
     sharded_lbfgsb_minimize,
-    sharded_fused_minimize,
-    sharded_lbfgsb_solve_fused,
-    sharded_lbfgsb_solve_fused_tall,
     sharded_summary,
 )
 
@@ -19,9 +16,6 @@ __all__ = [
     "batch_sharding",
     "sharded_batch_minimize",
     "sharded_lbfgsb_minimize",
-    "sharded_fused_minimize",
-    "sharded_lbfgsb_solve_fused",
-    "sharded_lbfgsb_solve_fused_tall",
     "coordinate_sharded_minimize",
     "coordinate_sharded_lbfgsb_minimize",
     "sharded_summary",

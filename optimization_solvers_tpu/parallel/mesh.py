@@ -2,7 +2,7 @@
 
 The reference is single-threaded and single-instance
 (``/root/reference/src/ls_solver.rs:78-108``); here batches of problem
-instances shard over a TPU mesh.  Data-parallel solves are embarrassingly
+instances shard over a device mesh.  Data-parallel solves are embarrassingly
 parallel (per-instance convergence), so the batch axis shards with *zero*
 collectives on the hot path; coordinate-sharded large-n solves (axis
 ``"tp"``) let XLA insert psum/all-gather for the dot products.

@@ -7,7 +7,7 @@ batch axis with each device running its shard's solver loop *independently*
 — a device whose lanes all converged goes idle instead of lock-stepping
 with the slowest device (which is what a GSPMD-sharded global ``vmap``
 while-loop would do: its condition becomes a cross-device reduction every
-iteration, riding ICI for no benefit).
+iteration, for no benefit).
 
 Collectives appear only in the optional telemetry reduction
 (:func:`sharded_summary`) and in coordinate-sharded ("tp") oracles, where
@@ -31,14 +31,14 @@ from optimization_solvers_tpu.solvers.driver import batch_minimize
 
 
 def _result_specs(axis: str):
-    # x_lo / gcp_multimodal (round-5 optional SolveResult fields) are
-    # batch-axis leaves when the wrapped path produces them; a P spec on a
-    # None subtree is accepted (prefix pytree), but None on an ARRAY leaf
-    # is not — so spec them like their siblings
+    # x_lo (the optional f32x2 SolveResult field) is a batch-axis leaf
+    # when the wrapped path produces it; a P spec on a None subtree is
+    # accepted (prefix pytree), but None on an ARRAY leaf is not — so spec
+    # it like its siblings
     return SolveResult(
         x=P(axis, None), f=P(axis), g=P(axis, None),
         iterations=P(axis), status=P(axis), pg_norm=P(axis),
-        x_lo=P(axis, None), gcp_multimodal=P(axis),
+        x_lo=P(axis, None),
     )
 
 
@@ -119,7 +119,7 @@ def _summary_reduce(status, iterations):
 def sharded_summary(result: SolveResult, mesh: Mesh, axis: str = "dp") -> dict:
     """Global convergence telemetry reduced ON DEVICE: the jitted reduction
     runs over the sharded result arrays, so XLA lowers the sums to
-    all-reduce collectives over ICI on real multi-chip hardware (SURVEY.md
+    all-reduce collectives on real multi-device hardware (SURVEY.md
     §5 device-side convergence telemetry); only the three scalars cross to
     the host."""
     converged, total_iters, max_iters = _summary_reduce(
@@ -195,7 +195,7 @@ def coordinate_sharded_minimize(
     The solve is the ordinary :func:`solvers.minimize` loop jitted under
     GSPMD: dot products inside the direction/line-search math contract over
     the sharded coordinate axis, so XLA inserts ``psum``/``all_gather``
-    collectives (riding ICI on real hardware) — no hand-written
+    collectives (NCCL on GPUs) — no hand-written
     communication.  Results match the replicated solve to reduction-order
     tolerance (tested to convergence in ``tests/test_parallel.py``).
 
@@ -245,126 +245,3 @@ def coordinate_sharded_lbfgsb_minimize(
         return jax.vmap(lambda xi: lbfgsb_minimize(oracle, xi, lo, up, config))(x)
 
     return jax.jit(solve)(x0, lower, upper)
-
-
-def sharded_lbfgsb_solve_fused(
-    f,
-    x0: jax.Array,
-    lower: jax.Array,
-    upper: jax.Array,
-    consts: tuple = (),
-    *,
-    mesh: Mesh,
-    axis: str = "dp",
-    **fused_kwargs,
-) -> SolveResult:
-    """Multi-chip fused path: ``shard_map`` of the fused Pallas L-BFGS-B
-    kernel over the batch axis — each device runs its shard's VMEM-resident
-    tiles to completion independently (same no-cross-device-lockstep
-    argument as :func:`sharded_batch_minimize`, but at fused-kernel speed).
-
-    The per-device shard size must be a multiple of the kernel ``tile``.
-    ``consts`` (problem-data arrays) are closed over, i.e. replicated.
-    """
-    from optimization_solvers_tpu.ops.pallas_lbfgsb import lbfgsb_solve_fused
-
-    @functools.partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(P(axis, None), P(None), P(None)),
-        out_specs=_result_specs(axis),
-        check_vma=False,
-    )
-    def solve_shard(x0_local, lo, up):
-        return lbfgsb_solve_fused(
-            f, x0_local, lo, up, consts, **fused_kwargs
-        )
-
-    x0 = jax.device_put(x0, NamedSharding(mesh, P(axis, None)))
-    return jax.jit(solve_shard)(x0, lower, upper)
-
-
-def sharded_fused_minimize(
-    method,
-    line_search,
-    f,
-    x0: jax.Array,
-    lower: jax.Array = None,
-    upper: jax.Array = None,
-    consts: tuple = (),
-    *,
-    mesh: Mesh,
-    axis: str = "dp",
-    **fused_kwargs,
-) -> SolveResult:
-    """Multi-chip GENERIC fused path: ``shard_map`` of the generic fused
-    whole-solve kernel (``ops/pallas_driver.py`` — any supported
-    (method, search) combo) over the batch axis; each device runs its
-    shard's VMEM-resident tiles to completion independently.
-
-    ``consts`` (problem-data arrays) are replicated; the per-device shard
-    size is padded to the kernel ``tile`` inside ``fused_minimize``.
-    """
-    from optimization_solvers_tpu.ops.pallas_driver import fused_minimize
-
-    bounded = lower is not None
-
-    if bounded:
-        in_specs = (P(axis, None), P(None), P(None))
-
-        @functools.partial(shard_map, mesh=mesh, in_specs=in_specs,
-                           out_specs=_result_specs(axis), check_vma=False)
-        def solve_shard(x0_local, lo, up):
-            return fused_minimize(method, line_search, f, x0_local, lo, up,
-                                  consts=consts, **fused_kwargs)
-
-        x0 = jax.device_put(x0, NamedSharding(mesh, P(axis, None)))
-        return jax.jit(solve_shard)(x0, lower, upper)
-
-    @functools.partial(shard_map, mesh=mesh, in_specs=(P(axis, None),),
-                       out_specs=_result_specs(axis), check_vma=False)
-    def solve_shard(x0_local):
-        return fused_minimize(method, line_search, f, x0_local,
-                              consts=consts, **fused_kwargs)
-
-    x0 = jax.device_put(x0, NamedSharding(mesh, P(axis, None)))
-    return jax.jit(solve_shard)(x0)
-
-
-def sharded_lbfgsb_solve_fused_tall(
-    f,
-    x0: jax.Array,
-    lower: jax.Array,
-    upper: jax.Array,
-    consts: tuple = (),
-    *,
-    mesh: Mesh,
-    axis: str = "dp",
-    **fused_kwargs,
-) -> SolveResult:
-    """Multi-chip large-n fused path (config-4 class at pod scale):
-    ``shard_map`` of the tall-layout L-BFGS-B kernel
-    (:func:`ops.pallas_lbfgsb_tall.lbfgsb_solve_fused_tall`) over the
-    batch axis — each device runs its shard's (T, n) sublane tiles to
-    completion independently.  ``consts`` (the problem-data arrays, e.g.
-    the (rows, n) design matrix) are replicated per device; the per-device
-    shard size must be a multiple of the kernel ``tile`` (default 8).
-    """
-    from optimization_solvers_tpu.ops.pallas_lbfgsb_tall import (
-        lbfgsb_solve_fused_tall,
-    )
-
-    @functools.partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(P(axis, None), P(None), P(None)),
-        out_specs=_result_specs(axis),
-        check_vma=False,
-    )
-    def solve_shard(x0_local, lo, up):
-        return lbfgsb_solve_fused_tall(
-            f, x0_local, lo, up, consts, **fused_kwargs
-        )
-
-    x0 = jax.device_put(x0, NamedSharding(mesh, P(axis, None)))
-    return jax.jit(solve_shard)(x0, lower, upper)

@@ -1,15 +1,14 @@
-"""f32x2 precision stage: certify strict tolerances on f32-only hardware.
+"""f32x2 precision stage: certify strict tolerances for f32 solves.
 
 The reference solves in f64 end-to-end (``/root/reference/src/number.rs:3``),
-so a ``grad_tol = 1e-6`` stationarity certificate is routine.  On TPU v5e
-(f32 VPU, no f64) plain solves hit the measured ~2e-4 certification wall:
-f32 gradient evaluation carries cancellation noise far above 1e-6
-(docs/tpu_accuracy.md), and the f32 grid itself quantizes attainable
-gradients (|g| jumps in steps of ~L*eps*|x|).  This module closes that gap
-the TPU-native way:
+so a ``grad_tol = 1e-6`` stationarity certificate is routine.  Plain f32
+solves hit a ~2e-4 certification wall: f32 gradient evaluation carries
+cancellation noise far above 1e-6, and the f32 grid itself quantizes
+attainable gradients (|g| jumps in steps of ~L*eps*|x|).  This module
+closes that gap with emulated f64 for f32 inputs:
 
-  1. run the normal fast f32 path (fused Pallas kernels, lockstep XLA) to
-     its certification floor — the bulk of the work at full speed;
+  1. run the normal fast f32 path (lockstep XLA) to its certification
+     floor — the bulk of the work at full speed;
   2. POLISH the exits with a double-float BFGS: iterates, objective values,
      gradients, and Wolfe/Armijo comparisons all flow as (hi, lo) f32
      pairs (core/df.py) with the oracle evaluated by the f32x2 jaxpr
@@ -17,7 +16,7 @@ the TPU-native way:
 
 Near the minimizer the polish is superlinear, so certification costs a
 handful of df iterations per lane — the expensive arithmetic (~10-20 f32
-ops per op, all VPU) runs only where plain f32 cannot finish the job.
+ops per op, all elementwise) runs only where plain f32 cannot finish the job.
 Lanes that already certify exit the loop immediately (per-lane masks, same
 lockstep dataflow as the main driver).
 
@@ -25,7 +24,7 @@ Exposed directly (:func:`df_polish_minimize`, usable as a standalone
 full-df solve from any x0) and through the front end's
 ``precision="f32x2"`` option (frontend.py).  Semantics cited against the
 reference template loop ``ls_solver.rs:66-111`` and BFGS update
-``quasi_newton/bfgs.rs:64-110``; everything runs under jit/vmap on TPU.
+``quasi_newton/bfgs.rs:64-110``; everything runs under jit/vmap.
 """
 
 from __future__ import annotations
@@ -153,7 +152,7 @@ def _single_polish(vg, val, n, grad_tol, max_iter, max_iter_ls,
             return jnp.eye(n, dtype=jnp.float32)
 
         def engine_direction(H, g32):
-            # true-f32 einsum: TPU `@` demotes to bf16 (core.numerics)
+            # true-f32 einsum: an f32 `@` may run in TF32 (core.numerics)
             return -matvec(H, g32)
 
         def engine_reset(H, keep):
@@ -316,8 +315,7 @@ def df_polish_minimize(f, x0, *, data=(), x0_lo=None, bounds=None,
                        max_iter_ls=30, memory="auto") -> DFPolishResult:
     """Batched double-float BFGS solve/polish from ``x0``.
 
-    ``f`` is a raw scalar objective ``f(x, *data)`` (the same contract the
-    fused kernels use); it is re-traced and interpreted in f32x2, so only
+    ``f`` is a raw scalar objective ``f(x, *data)``; it is re-traced and interpreted in f32x2, so only
     primitives with df rules are supported (core/df_interp.py — loud
     failure otherwise).  ``x0`` is (B, n) f32 (a 1-D x0 is promoted to a
     batch of one); ``x0_lo`` optionally carries the low words of a df
@@ -332,7 +330,7 @@ def df_polish_minimize(f, x0, *, data=(), x0_lo=None, bounds=None,
     Usable two ways: as a *polish* from an f32 solver's exit (the
     ``precision="f32x2"`` path — lanes already certified exit at zero
     cost), or as a standalone df solve from any starting point (slower:
-    every oracle op costs ~10-20 f32 VPU ops)."""
+    every oracle op costs ~10-20 elementwise f32 ops)."""
     x0 = jnp.asarray(x0, jnp.float32)
     single = x0.ndim == 1
     if single:

@@ -6,11 +6,11 @@ provides the unbounded Rust-free counterpart as a regular
 :class:`~optimization_solvers_tpu.solvers.base.Method` for the generic
 driver, keeping memory O(m n) instead of the dense family's O(n^2).
 
-TPU design: the (m, n) S/Y histories are maintained in chronological order
+Design: the (m, n) S/Y histories are maintained in chronological order
 by a roll-and-write (O(m n) per iteration, trivially fused by XLA); the
 two-loop recursion unrolls over the static history length m, so each step
-is a chain of fused (n,)-vector FMAs that batches to (B, n) VPU work under
-``vmap``.
+is a chain of fused (n,)-vector FMAs that batches to (B, n) elementwise
+work under ``vmap``.
 """
 
 from __future__ import annotations
@@ -109,8 +109,8 @@ class LBFGS(Method):
         # curvature-gated updates; the misleading model is discarded and the
         # iteration retried from steepest descent — the same repair the
         # Fortran core applies on a failed line search (mainlb's restart;
-        # surfaced by the reference at lbfgsb.rs:76-84) and the fused
-        # dense-QN restart mode uses
+        # surfaced by the reference at lbfgsb.rs:76-84) and the dense-QN
+        # restart mode uses
         ok = jnp.all(jnp.isfinite(d)) & (vdot(ev.g, d) < 0.0)
         d = jnp.where(ok, d, -ev.g)
         mstate = mstate._replace(

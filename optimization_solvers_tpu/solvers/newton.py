@@ -2,8 +2,7 @@
 projected Newton, and spectral projected Newton (SPN).
 
 The dense linear-algebra cores (inverse / Cholesky solve) go through
-:mod:`optimization_solvers_tpu.ops`, which dispatches to Pallas kernels on
-TPU and to XLA's native factorizations elsewhere.
+:mod:`optimization_solvers_tpu.ops`, i.e. XLA's native factorizations.
 """
 
 from __future__ import annotations
@@ -112,7 +111,7 @@ class SpectralProjectedNewton(BoundedMethod):
     semantics) computes the pair in the Newton-preconditioned metric —
     ``lam = s.s / s.(H^{-1} y)`` with the factor already in hand — which
     restores ``lam -> 1`` (exact on quadratics) and one-step-like
-    convergence; see docs/tpu_accuracy.md and PARITY.md."""
+    convergence; see PARITY.md."""
 
     grad_tol: float = 1e-8
     lambda_min: float = 1e-3

@@ -1,9 +1,7 @@
 """Truncated Newton-CG solver: matrix-free second order through the
-general XLA path — the flexible twin of the fused kernel in
-:mod:`optimization_solvers_tpu.ops.pallas_newton_cg` (same algorithm, same
-stopping semantics, so the two cross-check numerically).
+general XLA path.
 
-Algorithm (TPU-native extension of the reference's Newton family,
+Algorithm (a batched extension of the reference's Newton family,
 ``/root/reference/src/newton/projected_newton.rs:64-80``, generalized to
 matrix-free form — no (n, n) Hessian is ever materialized):
 
@@ -174,14 +172,12 @@ def make_newton_cg_step(oracle, lower, upper,
         x_new = jnp.where(ok, x_new, c.x)
         f_new = jnp.where(ok, ev.f, c.f)
         g_new = jnp.where(ok, ev.g, c.g)
-        # f_prev advances only on ACCEPTED steps (the fused kernel's
-        # ``Fprev = where(upd, Fv, Fprev)``): a rejected nonfinite trial
-        # must not arm the factr stall test with f_prev == f
+        # f_prev advances only on ACCEPTED steps: a rejected nonfinite
+        # trial must not arm the factr stall test with f_prev == f
         f_prev = jnp.where(ok, c.f, c.f_prev)
         return _Carry(x_new, f_new, g_new, f_prev, c.k + 1)
 
     def result_fn(final: _Carry) -> SolveResult:
-        # the fused kernel's exit semantics (pallas_newton_cg.py tail):
         # recompute convergence on the final state, so a lane that lands
         # converged exactly at the budget reports CONVERGED
         finite = jnp.isfinite(final.f)
@@ -230,10 +226,7 @@ def newton_cg_batch_minimize(
     config: NewtonCGConfig = NewtonCGConfig(),
 ) -> SolveResult:
     """Lockstep batched Newton-CG (same design as
-    :func:`solvers.lbfgsb.lbfgsb_batch_minimize`); jitted at the boundary.
-    On TPU prefer the fused kernel
-    (:func:`ops.pallas_newton_cg.newton_cg_solve_fused`) for small/medium
-    ``n``; this path has no VMEM ceiling."""
+    :func:`solvers.lbfgsb.lbfgsb_batch_minimize`); jitted at the boundary."""
     from optimization_solvers_tpu.solvers.driver import lockstep_loop
 
     cfg = config

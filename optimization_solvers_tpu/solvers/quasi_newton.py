@@ -9,9 +9,9 @@ identity, with direction ``-B g`` (projected variants:
 exits (``bfgs.rs:15-26,64-76``), and a rank-1/rank-2 post-step update that is
 skipped when the correction pair is too small (``bfgs.rs:104-112``).
 
-TPU notes: the updates are expressed as fused outer-product matmuls so XLA
-maps them onto the MXU; under ``vmap`` they become batched (B, n, n)
-einsums.  The BFGS two-sided update is algebraically expanded to avoid
+The updates are expressed as outer products and matvecs that XLA fuses;
+under ``vmap`` they become batched (B, n, n) elementwise updates.  The BFGS
+two-sided update is algebraically expanded to avoid
 materializing the two (n, n) ``I - rho s y^T`` factors the reference builds
 (``bfgs.rs:114-124``):
 
@@ -39,9 +39,6 @@ class _QNState(NamedTuple):
     B: jax.Array       # (n, n) approximate inverse Hessian
     s_norm: jax.Array
     y_norm: jax.Array
-    Bg: jax.Array      # cached B @ g at the current iterate (fused mode
-                       # computes it inside the update kernel; unfused mode
-                       # recomputes it in direction())
     stalls: jax.Array = 0  # consecutive degenerate pairs
                        # (restart_on_degeneracy mode only)
 
@@ -87,9 +84,6 @@ class _QuasiNewtonCommon:
 
     tol: float = 1e-8
     update: str = "bfgs"
-    # fused=True runs the rank-1/rank-2 update and the next direction matvec
-    # in one pass over B (the Pallas kernel on TPU, its XLA twin elsewhere)
-    fused: bool = False
     # Robustness knobs beyond the reference (default off = exact
     # reference semantics, bfgs.rs:104-124):
     #  * scale_b0: before the FIRST update, rescale B0 = (s.y/y.y) I
@@ -103,18 +97,10 @@ class _QuasiNewtonCommon:
     scale_b0: bool = False
     restart_on_degeneracy: bool = False
 
-    def __post_init__(self):
-        if self.fused and (self.scale_b0 or self.restart_on_degeneracy):
-            raise ValueError(
-                "fused per-iteration QN mode does not implement "
-                "scale_b0/restart_on_degeneracy; use the whole-solve fused "
-                "kernel (ops.fused_minimize) or fused=False")
-
     def init(self, x, ev, bounds: Bounds):
         n = x.shape[-1]
         inf = jnp.asarray(jnp.inf, x.dtype)
-        # B0 = I so B0 g = g
-        return _QNState(jnp.eye(n, dtype=x.dtype), inf, inf, ev.g,
+        return _QNState(jnp.eye(n, dtype=x.dtype), inf, inf,
                         jnp.zeros((), jnp.int32))
 
     def converged(self, mstate: _QNState, x, ev, bounds: Bounds):
@@ -156,25 +142,9 @@ class _QuasiNewtonCommon:
         if self.scale_b0 or self.restart_on_degeneracy:
             return self._robust_post_step(
                 mstate, s, y, s_norm, y_norm, skip)
-        if self.fused:
-            from optimization_solvers_tpu.ops.pallas_qn import (
-                qn_update_direction_pallas,
-                qn_update_direction_ref,
-            )
-
-            if jax.default_backend() == "tpu":
-                B_new, Bg = qn_update_direction_pallas(
-                    mstate.B, s, y, ev_new.g, tol=self.tol, kind=self.update
-                )
-            else:
-                B_new, Bg = qn_update_direction_ref(
-                    mstate.B, s, y, ev_new.g, skip, kind=self.update
-                )
-        else:
-            B_new = _UPDATES[self.update](mstate.B, s, y, vdot(s, y))
-            B_new = jnp.where(skip, mstate.B, B_new)
-            Bg = mstate.Bg  # recomputed lazily in direction()
-        return _QNState(B_new, s_norm, y_norm, Bg, mstate.stalls)
+        B_new = _UPDATES[self.update](mstate.B, s, y, vdot(s, y))
+        B_new = jnp.where(skip, mstate.B, B_new)
+        return _QNState(B_new, s_norm, y_norm, mstate.stalls)
 
     def _robust_post_step(self, mstate, s, y, s_norm, y_norm, skip):
         """scale_b0 / restart_on_degeneracy variants (see field docs)."""
@@ -196,7 +166,7 @@ class _QuasiNewtonCommon:
         else:
             B_next = jnp.where(ok, B_new, B_cur)
         stalls = jnp.where(ok, jnp.int32(0), mstate.stalls + 1)
-        return _QNState(B_next, s_norm, y_norm, mstate.Bg, stalls)
+        return _QNState(B_next, s_norm, y_norm, stalls)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,10 +174,10 @@ class QuasiNewton(_QuasiNewtonCommon, Method):
     """Unconstrained quasi-Newton: direction ``-B g`` (``bfgs.rs:42-49``)."""
 
     def direction(self, mstate: _QNState, x, ev, bounds: Bounds):
-        Bg = mstate.Bg if self.fused else matvec(mstate.B, ev.g)
-        d = -Bg
+        d = -matvec(mstate.B, ev.g)
         if self.restart_on_degeneracy:
-            # descent safeguard (see ops/pallas_driver._QNSpec.direction)
+            # descent safeguard: a restarted B that fails to give descent
+            # falls back to steepest descent
             d = jnp.where(vdot(ev.g, d) < 0.0, d, -ev.g)
         return d, mstate
 
@@ -220,8 +190,7 @@ class QuasiNewtonB(_QuasiNewtonCommon, BoundedMethod):
     reference (``bfgs_b.rs:92-104``), not the projected gradient."""
 
     def direction(self, mstate: _QNState, x, ev, bounds: Bounds):
-        Bg = mstate.Bg if self.fused else matvec(mstate.B, ev.g)
-        d = box_projection(x - Bg, *bounds) - x
+        d = box_projection(x - matvec(mstate.B, ev.g), *bounds) - x
         if self.restart_on_degeneracy:
             d = jnp.where(vdot(ev.g, d) < 0.0, d,
                           box_projection(x - ev.g, *bounds) - x)

@@ -116,7 +116,7 @@ class SpectralProjectedGradient(BoundedMethod):
     f32 tail lanes (~1.5%) still burn 1000+ iterations on a lambda 4-cycle
     while f is decreasing ~1%/iteration (all of them converge by ~1819
     iterations; f64 shows the same heavy tail at 445, so the cycling is
-    BB-geometry, not an f32 acceptance freeze — BENCH_NOTES round 4).
+    BB-geometry, not an f32 acceptance freeze).
     ``bb_variant="alternate"`` alternates BB1 with BB2 (``s.y / y.y``)
     per step — the standard cycling-breaker (Dai-Fletcher ABB family) —
     and converges every measured tail lane in median 274 iterations.

@@ -14,7 +14,12 @@ from optimization_solvers_tpu.utils.checkpoint import (
     save_state,
     save_state_orbax,
 )
-from optimization_solvers_tpu.utils.profiling import op_profile, trace, wall_timer
+from optimization_solvers_tpu.utils.profiling import (
+    device_activity,
+    op_profile,
+    trace,
+    wall_timer,
+)
 
 __all__ = [
     "LogFormat",
@@ -30,4 +35,5 @@ __all__ = [
     "trace",
     "wall_timer",
     "op_profile",
+    "device_activity",
 ]

@@ -53,13 +53,12 @@ x0 = jax.make_array_from_callback((B, n), sharding, lambda idx: x0_np[idx])
 @jax.jit
 def dp_solve(x):
     return solvers.batch_minimize(
-        method, ls.BackTracking(), oracle, x, max_iter=2000, fused=False)
+        method, ls.BackTracking(), oracle, x, max_iter=2000)
 
 
 r = dp_solve(x0)
 ref = solvers.batch_minimize(
-    method, ls.BackTracking(), oracle, jnp.asarray(x0_np), max_iter=2000,
-    fused=False)
+    method, ls.BackTracking(), oracle, jnp.asarray(x0_np), max_iter=2000)
 
 for shard, ref_shard in zip(
         r.x.addressable_shards,

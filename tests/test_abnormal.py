@@ -184,27 +184,26 @@ def test_native_nan_wall_abnormal():
     assert f == pytest.approx(3.0)
 
 
-def test_fused_nan_wall_abnormal():
-    from optimization_solvers_tpu.ops.pallas_lbfgsb import lbfgsb_solve_fused
+def test_frontend_nan_wall_abnormal():
+    import optimization_solvers_tpu as ost
 
-    x0 = jnp.zeros((2, 3))
-    res = lbfgsb_solve_fused(
-        _nan_wall(), x0, jnp.full(3, -10.0), jnp.full(3, 10.0),
-        m=5, pgtol=1e-8, factr=10.0, max_iter=50, tile=2, interpret=True)
+    res = ost.minimize(_nan_wall(), jnp.zeros((2, 3)), method="lbfgsb",
+                       bounds=(-10.0, 10.0), tol=1e-8, factr=10.0, m=5,
+                       max_iter=50)
     assert np.all(np.asarray(res.status) == int(Status.ABNORMAL))
     np.testing.assert_allclose(np.asarray(res.x), np.zeros((2, 3)))
     np.testing.assert_allclose(np.asarray(res.f), np.full(2, 3.0))
 
 
-def test_fused_abnormal_lane_isolated():
-    """Fused kernel: a walled lane reports ABNORMAL while its tile-mates
-    converge normally."""
-    from optimization_solvers_tpu.ops.pallas_lbfgsb import lbfgsb_solve_fused
+def test_frontend_abnormal_lane_isolated():
+    """Through the one-call front end: a walled lane reports ABNORMAL
+    while its batch-mates converge normally."""
+    import optimization_solvers_tpu as ost
 
     x0 = jnp.asarray([[0.0, 0.0], [1.2, 0.9], [0.8, 1.3], [1.4, 1.1]])
-    res = lbfgsb_solve_fused(
-        _walled_aniso(), x0, jnp.full(2, -100.0), jnp.full(2, 100.0),
-        m=5, pgtol=1e-6, factr=10.0, max_iter=200, tile=4, interpret=True)
+    res = ost.minimize(_walled_aniso(), x0, method="lbfgsb",
+                       bounds=(-100.0, 100.0), tol=1e-6, factr=10.0, m=5,
+                       max_iter=200)
     status = np.asarray(res.status)
     assert status[0] == int(Status.ABNORMAL)
     assert np.all(status[1:] == int(Status.CONVERGED))

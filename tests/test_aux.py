@@ -232,7 +232,7 @@ def test_checkpoint_orbax_roundtrip_and_resume(tmp_path):
 def test_op_profile_reports_ops(tmp_path):
     # the xprof-backed op-level breakdown must attribute device/host time
     # to named ops of a jitted computation (the tool behind the config-4
-    # hot-loop rebuild, BENCH_NOTES round 2)
+    # hot-loop rebuild)
     pytest.importorskip("xprof")
     import jax
     import jax.numpy as jnp

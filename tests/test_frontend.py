@@ -105,7 +105,7 @@ def test_frontend_tracing_toggle_not_stale(monkeypatch, caplog):
 
     oracle = make_oracle(lambda x: jnp.sum(x * x))
     x0 = jnp.ones((4, 3))
-    kw = dict(fused=False, max_iter=20)
+    kw = dict(max_iter=20)
     monkeypatch.delenv("OST_LOG", raising=False)
     logging.getLogger("optimization_solvers_tpu").setLevel(logging.INFO)
     solvers.batch_minimize(solvers.GradientDescent(grad_tol=1e-6),
@@ -122,7 +122,7 @@ def test_frontend_tracing_toggle_not_stale(monkeypatch, caplog):
 def test_frontend_dtype_aware_default_tol():
     """VERDICT round-3 item 4: the default stationarity tolerance is
     dtype-aware (1e-6 for f64, 1e-4 for f32 — the factr treatment at
-    frontend.py).  The exp-bowl anchor (docs/tpu_accuracy.md) is the
+    frontend.py).  The exp-bowl anchor (tools/accuracy_anchors.py) is the
     motivating geometry: its minimum VALUE is 1, so f32 value-based
     acceptance freezes pg at ~1e-5 and a 1e-6 certificate burns the whole
     budget; the f32 default converges, an explicit tol always wins."""
@@ -150,9 +150,8 @@ def test_frontend_dtype_aware_default_tol():
 
 def test_frontend_per_lane_bounds_batched_lbfgsb():
     """(B, n) bounds through the one-call front end: each lane gets its own
-    box (batch-axis capability beyond the single-instance reference).  On
-    CPU this takes the vmapped XLA path; on TPU the fused kernels accept
-    the same (B, n) bound operands."""
+    box (batch-axis capability beyond the single-instance reference),
+    through the single-instance solve vmapped over the batch."""
     d = jnp.linspace(1.0, 6.0, 5)
 
     def quad(x, dd):
@@ -247,33 +246,21 @@ def test_frontend_policy_routing(monkeypatch):
         ost.minimize(quad, x32, method="gd", policy="turbo")
 
 
-def test_frontend_policy_reference_tall_dcsrch(monkeypatch):
-    """policy="reference" on batched lbfgsb injects the tall kernel's
-    dcsrch mode (the Fortran pairing); "fast" keeps Armijo; an explicit
-    tall_line_search always wins (round 5).  Pinned by spying on the
-    LbfgsbConfig the frontend constructs (backend-agnostic)."""
-    import optimization_solvers_tpu.solvers.lbfgsb as lb
-
-    built = {}
-    real_cfg = lb.LbfgsbConfig
-
-    class SpyCfg(real_cfg):
-        # the frontend also builds a no-arg default for its honored-options
-        # check — the FIRST construction per call is the solve cfg
-        def __init__(self, **kw):
-            super().__init__(**kw)
-            built.setdefault("cfg", self)
-
-    monkeypatch.setattr(lb, "LbfgsbConfig", SpyCfg)
-
+def test_frontend_lbfgsb_policy_independent():
+    """Batched lbfgsb has one backend (the lockstep dcsrch path), so the
+    policy knob leaves it alone: both policies give the same lanes, and the
+    removed kernel-only options are rejected as unknown."""
     def quad(x):
         return jnp.sum((x - 0.2) ** 2)
 
-    x0 = jnp.zeros((4, 8), jnp.float32)
-    ost.minimize(quad, x0, method="lbfgsb", policy="reference", tol=1e-5)
-    assert built.pop("cfg").tall_line_search == "dcsrch"
-    ost.minimize(quad, x0, method="lbfgsb", policy="fast", tol=1e-5)
-    assert built.pop("cfg").tall_line_search == "armijo"
-    ost.minimize(quad, x0, method="lbfgsb", policy="reference",
-                 tall_line_search="armijo", tol=1e-5)
-    assert built.pop("cfg").tall_line_search == "armijo"
+    x0 = jnp.asarray(np.random.RandomState(4).uniform(-1, 1, (4, 8)),
+                     jnp.float32)
+    r_fast = ost.minimize(quad, x0, method="lbfgsb", policy="fast", tol=1e-5)
+    r_ref = ost.minimize(quad, x0, method="lbfgsb", policy="reference",
+                         tol=1e-5)
+    np.testing.assert_array_equal(np.asarray(r_fast.x), np.asarray(r_ref.x))
+    np.testing.assert_array_equal(np.asarray(r_fast.iterations),
+                                  np.asarray(r_ref.iterations))
+    for opt in ("tall_line_search", "tile"):
+        with pytest.raises(TypeError, match=opt):
+            ost.minimize(quad, x0, method="lbfgsb", **{opt: 1})

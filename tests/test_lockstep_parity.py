@@ -1,4 +1,4 @@
-"""Lockstep batched driver parity: batch_minimize(fused=False) must agree
+"""Lockstep batched driver parity: batch_minimize must agree
 LANE-FOR-LANE (bitwise on x, and on iteration counts and statuses) with
 independent single-instance minimize() runs, for every method family and
 search.  This pins the semantics of the default batched path
@@ -60,8 +60,7 @@ def test_lockstep_matches_single(method, search, bounded, needs_h):
         rng.uniform(-2, 2.5, (2, N)),
     ]))
     batched = solvers.batch_minimize(
-        method, search, oracle, x0s, bounds=bounds, max_iter=400,
-        fused=False)
+        method, search, oracle, x0s, bounds=bounds, max_iter=400)
     for i in range(B):
         single = solvers.minimize(
             method, search, oracle, x0s[i], bounds=bounds, max_iter=400)
@@ -107,12 +106,12 @@ def test_lockstep_unroll_bitexact():
         solvers.GradientDescent(grad_tol=1e-6), ls.BackTracking(),
         make_oracle(problems.example_gd()),
         jnp.asarray(np.random.RandomState(2).uniform(-5, 5, (8, 2))),
-        fused=False, max_iter=33)
+        max_iter=33)
     r_gen2 = solvers.batch_minimize(
         solvers.GradientDescent(grad_tol=1e-6), ls.BackTracking(),
         make_oracle(problems.example_gd()),
         jnp.asarray(np.random.RandomState(2).uniform(-5, 5, (8, 2))),
-        fused=False, max_iter=33, unroll=4)
+        max_iter=33, unroll=4)
     np.testing.assert_array_equal(np.asarray(r_gen1.x), np.asarray(r_gen2.x))
     np.testing.assert_array_equal(
         np.asarray(r_gen1.iterations), np.asarray(r_gen2.iterations))

@@ -4,6 +4,7 @@ against known minima."""
 
 import shutil
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,15 +71,11 @@ def test_native_max_iter_status():
     assert status == 2 and iters == 3
 
 
-def test_tall_kernel_matches_native_bounded():
-    """Round-4 path: the tall-layout fused kernel (segment-bisection GCP)
-    cross-checked against the clean-room C++ core on a bound-active
-    Rosenbrock — three independent implementations of the same algorithm
-    reach the same constrained minimizer (iteration counts differ between
-    the Armijo kernel pairing and the dcsrch-driven native/XLA cores)."""
-    from optimization_solvers_tpu.ops.pallas_lbfgsb_tall import (
-        lbfgsb_solve_fused_tall,
-    )
+def test_lockstep_lbfgsb_matches_native_bounded():
+    """The lockstep batched L-BFGS-B cross-checked against the clean-room
+    C++ core on a bound-active Rosenbrock: two independent implementations
+    of the same algorithm reach the same constrained minimizer."""
+    from optimization_solvers_tpu.solvers.lbfgsb import lbfgsb_batch_minimize
 
     n = 16
     lo_np = np.full(n, -1.5)
@@ -88,10 +85,11 @@ def test_tall_kernel_matches_native_bounded():
         _rosen_vg, x0.copy(), lo_np, hi_np,
         m=5, pgtol=1e-8, factr=10.0, max_iter=500)
     assert st_nat == 1
-    res = lbfgsb_solve_fused_tall(
-        problems.rosenbrock(), jnp.asarray(x0)[None, :],
-        jnp.asarray(lo_np), jnp.asarray(hi_np),
-        m=5, pgtol=1e-8, factr=10.0, max_iter=500, tile=1, interpret=True)
+    res = jax.jit(lambda x: lbfgsb_batch_minimize(
+        make_oracle(problems.rosenbrock()), x, jnp.asarray(lo_np),
+        jnp.asarray(hi_np),
+        LbfgsbConfig(m=5, pgtol=1e-8, factr=10.0, max_iter=500)))(
+            jnp.asarray(x0)[None, :])
     assert int(res.status[0]) == 1
     np.testing.assert_allclose(np.asarray(res.x[0]), x_nat, atol=1e-5)
     assert abs(float(res.f[0]) - f_nat) < 1e-9 * max(1.0, abs(f_nat))

@@ -89,76 +89,34 @@ def test_make_mesh_helper():
     assert mesh.shape == {"dp": 8, "tp": 1}
 
 
-def test_sharded_fused_lbfgsb_matches_single_device():
-    # shard_map must not change the kernel's semantics: the sharded run
-    # must agree BIT-FOR-BIT with unsharded per-shard calls of the same
-    # kernel (identical shapes, grid=1 — exactly what shard_map traces on
-    # each device).  The full-batch (grid=8) run is only checked to
-    # tolerance: in interpret mode XLA-CPU compiles a grid-1 and a grid-8
-    # pallas grid loop differently (single-trip loop inlining changes FMA
-    # contraction), giving ~1-ulp direction differences that can cascade
-    # to +-1 iteration over a long Rosenbrock solve.  On real TPU the
-    # Mosaic kernel body is compiled once regardless of grid length.
-    from optimization_solvers_tpu.ops.pallas_lbfgsb import lbfgsb_solve_fused
-    from optimization_solvers_tpu.parallel import (
-        make_mesh, sharded_lbfgsb_solve_fused)
+def test_sharded_lbfgsb_f32_lanes_agree_with_one_device():
+    """The four-card comparison of chip_smoke.py at CPU size: the
+    data-parallel lockstep L-BFGS-B over a 4-device ("dp",) mesh against
+    the whole batch on one device, in f32 with the smoke's per-lane
+    rule."""
+    import chip_smoke
 
-    f = problems.rosenbrock()
-    n, B = 8, 32                      # 8 devices x shard 4, tile 4
-    x0 = jnp.asarray(np.random.RandomState(3).uniform(-2, 2, (B, n)))
-    lo = jnp.full((n,), -3.0)
-    hi = jnp.full((n,), 3.0)
-    mesh = make_mesh((8,), ("dp",))
-    kw = dict(m=5, pgtol=1e-6, factr=10.0, max_iter=300, tile=4,
-              interpret=True)
-    r_sharded = sharded_lbfgsb_solve_fused(
-        f, x0, lo, hi, mesh=mesh, axis="dp", **kw)
-    x_ps, it_ps, st_ps = [], [], []
-    for s in range(8):
-        r = lbfgsb_solve_fused(f, x0[4 * s:4 * (s + 1)], lo, hi, **kw)
-        x_ps.append(np.asarray(r.x))
-        it_ps.append(np.asarray(r.iterations))
-        st_ps.append(np.asarray(r.status))
-    np.testing.assert_array_equal(
-        np.asarray(r_sharded.x), np.concatenate(x_ps))
-    np.testing.assert_array_equal(
-        np.asarray(r_sharded.iterations), np.concatenate(it_ps))
-    np.testing.assert_array_equal(
-        np.asarray(r_sharded.status), np.concatenate(st_ps))
-    r_single = lbfgsb_solve_fused(f, x0, lo, hi, **kw)
-    np.testing.assert_allclose(
-        np.asarray(r_sharded.x), np.asarray(r_single.x), atol=1e-6)
-    # cross-grid-length drift is ~1 ulp per iteration amplified by the
-    # Rosenbrock valley: allow a few iterations of slack (the REAL
-    # invariant is the bit-exact per-shard comparison above)
-    assert np.abs(np.asarray(r_sharded.iterations).astype(np.int64)
-                  - np.asarray(r_single.iterations)).max() <= 5
+    r = chip_smoke.phase_sharded_dp("cpu", jax.devices()[:4], batch=32,
+                                    n=20)
+    assert r["same_status"] >= chip_smoke.AGREE_FRACTION
+    assert r["agreement"] >= chip_smoke.AGREE_FRACTION
 
 
-def test_sharded_generic_fused_matches_single_device():
-    # the GENERIC fused kernel (any method x search) under shard_map must
-    # agree lane-for-lane with the same kernel run unsharded
-    from optimization_solvers_tpu import linesearch as ls, solvers
-    from optimization_solvers_tpu.ops.pallas_driver import fused_minimize
-    from optimization_solvers_tpu.parallel import (
-        make_mesh, sharded_fused_minimize)
-
+def test_sharded_spg_matches_single_device():
+    # the general sharded driver with replicated bounds must agree lane for
+    # lane with the lockstep driver run unsharded
     n, B = 8, 32
     d = jnp.asarray(np.linspace(1.0, 20.0, n))
-
-    def f(x, dd):
-        return 0.5 * jnp.sum(dd * x * x)
-
+    oracle = make_oracle(lambda x, dd: 0.5 * jnp.sum(dd * x * x), data=(d,))
     x0 = jnp.asarray(np.random.RandomState(5).uniform(-2, 2, (B, n)))
-    lo = jnp.full((n,), -1.5)
-    hi = jnp.full((n,), 2.5)
+    bounds = (jnp.full((n,), -1.5), jnp.full((n,), 2.5))
     mesh = make_mesh((8,), ("dp",))
     method = solvers.SpectralProjectedGradient(grad_tol=1e-8)
-    kw = dict(consts=(d,), max_iter=500, max_iter_ls=30, tile=4,
-              interpret=True)
-    r_sharded = sharded_fused_minimize(
-        method, ls.GLLQuadratic(), f, x0, lo, hi, mesh=mesh, axis="dp", **kw)
-    r_single = fused_minimize(method, ls.GLLQuadratic(), f, x0, lo, hi, **kw)
+    kw = dict(bounds=bounds, max_iter=500, max_iter_ls=30)
+    r_sharded = sharded_batch_minimize(
+        method, ls.GLLQuadratic(), oracle, x0, mesh=mesh, axis="dp", **kw)
+    r_single = solvers.batch_minimize(method, ls.GLLQuadratic(), oracle, x0,
+                                      **kw)
     np.testing.assert_allclose(
         np.asarray(r_sharded.x), np.asarray(r_single.x), atol=1e-12)
     np.testing.assert_array_equal(
@@ -167,32 +125,13 @@ def test_sharded_generic_fused_matches_single_device():
         np.asarray(r_sharded.status), np.asarray(r_single.status))
 
 
-def test_sharded_tall_lbfgsb_per_shard_bitexact():
-    """shard_map of the tall-layout large-n kernel (round 4): each device's
-    shard must be BIT-EXACT with a standalone kernel run on that shard
-    (same shapes, grid=1 per device)."""
-    from optimization_solvers_tpu.ops.pallas_lbfgsb_tall import (
-        lbfgsb_solve_fused_tall)
-    from optimization_solvers_tpu.parallel import (
-        make_mesh, sharded_lbfgsb_solve_fused_tall)
+def test_coordinate_sharded_lbfgsb_f32_matches_one_device():
+    """The four-card coordinate-sharded comparison of chip_smoke.py at CPU
+    size: one bounded log-sum-exp instance with its coordinate axis over a
+    4-device ("tp",) mesh against the same solve on one device, in f32."""
+    import chip_smoke
 
-    f = problems.rosenbrock()
-    n, B = 12, 16                     # 8 devices x shard 2, tile 2
-    x0 = jnp.asarray(np.random.RandomState(9).uniform(-2, 2, (B, n)))
-    lo = jnp.full((n,), -2.0)
-    hi = jnp.full((n,), 1.2)          # active upper bounds
-    mesh = make_mesh((8,), ("dp",))
-    kw = dict(m=5, pgtol=1e-6, factr=10.0, max_iter=300, tile=2,
-              interpret=True)
-    r_sharded = sharded_lbfgsb_solve_fused_tall(
-        f, x0, lo, hi, mesh=mesh, axis="dp", **kw)
-    x_ps, st_ps = [], []
-    for s in range(8):
-        r = lbfgsb_solve_fused_tall(f, x0[2 * s:2 * (s + 1)], lo, hi, **kw)
-        x_ps.append(np.asarray(r.x))
-        st_ps.append(np.asarray(r.status))
-    np.testing.assert_array_equal(
-        np.asarray(r_sharded.x), np.concatenate(x_ps))
-    np.testing.assert_array_equal(
-        np.asarray(r_sharded.status), np.concatenate(st_ps))
-    assert np.isin(np.asarray(r_sharded.status), (1,)).all()
+    r = chip_smoke.phase_sharded_tp("cpu", jax.devices()[:4], n=512,
+                                    rows=64)
+    assert abs(r["f_tp"] - r["f_card0"]) <= chip_smoke.F_RTOL * (
+        1.0 + abs(r["f_card0"]))

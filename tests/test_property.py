@@ -153,7 +153,7 @@ def test_hager_zhang_b_feasible(seed, n):
 def test_lbfgsb_mixed_infinite_bounds_matches_scipy(seed, n):
     """Random mixed finite/+-inf bound patterns against scipy's (Fortran-
     ancestry) L-BFGS-B — the geometry class where the chunked Cauchy walk
-    NaN-poisoned on 0 * inf (BENCH_NOTES round 2)."""
+    NaN-poisoned on 0 * inf."""
     import pytest
 
     scipy_opt = pytest.importorskip("scipy.optimize")
@@ -268,52 +268,47 @@ def test_bounded_searches_return_feasible_steps(seed, n):
         assert bool(jnp.all(x_new <= hi + 1e-9)), name
 
 
-# module-scope objective: the fused wrappers jit with ``f`` STATIC, so an
-# objective defined inside the test body would be a fresh function object
-# per hypothesis example — a full recompile of both interpret-mode kernels
-# per example, which is exactly the compile pressure that segfaults the
-# jaxlib-0.9.0 XLA-CPU compiler in a long-lived xdist worker (the suite's
-# one known flake; CLAUDE.md "Commands")
+# module-scope objective: the front end builds its oracle from ``f``, and a
+# fresh function object per hypothesis example would recompile the solve
+# per example — compile pressure that segfaults the jaxlib-0.9.0 XLA-CPU
+# compiler in a long-lived xdist worker (CLAUDE.md "Commands")
 def _fq_perlane(x, Qm):
     return 0.5 * jnp.sum(x * (Qm @ x))
 
 
 @settings(max_examples=8, deadline=None)
 @given(_seed)
-def test_per_lane_bounds_fused_lbfgsb_matches_vmap(seed):
+def test_per_lane_bounds_lbfgsb_matches_scipy(seed):
     """Per-lane (B, n) boxes with random mixed finite/+-inf patterns PER
-    LANE through the fused L-BFGS-B kernels (round 4): every lane must
-    stay feasible in ITS box and match its own single-instance XLA solve
-    at tolerance — the geometry class where the chunked Cauchy walk had
-    its 0*inf NaN bug (BENCH_NOTES round 2)."""
-    from optimization_solvers_tpu.ops.pallas_lbfgsb import lbfgsb_solve_fused
-    from optimization_solvers_tpu.ops.pallas_lbfgsb_tall import (
-        lbfgsb_solve_fused_tall)
-    from optimization_solvers_tpu.solvers.lbfgsb import (
-        LbfgsbConfig, lbfgsb_minimize)
+    LANE through ``ost.minimize(method="lbfgsb")``: every lane must stay
+    feasible in ITS box and match scipy's Fortran L-BFGS-B on that lane —
+    the geometry class where the chunked Cauchy walk had its 0*inf NaN
+    bug."""
+    from scipy.optimize import fmin_l_bfgs_b
+
+    import optimization_solvers_tpu as ost
 
     B, n = 4, 6
     rng = np.random.RandomState(seed)
     q, _ = np.linalg.qr(rng.randn(n, n))
-    Q = jnp.asarray((q * np.logspace(0, 2, n)) @ q.T)
-
-    fq = _fq_perlane
-    lo = jnp.asarray(np.where(rng.rand(B, n) < 0.35, -np.inf,
-                              -np.sort(rng.uniform(0.1, 2, (B, n)), axis=1)))
-    hi = jnp.asarray(np.where(rng.rand(B, n) < 0.35, np.inf,
-                              np.sort(rng.uniform(0.2, 2, (B, n)), axis=1)))
-    x0 = jnp.asarray(rng.uniform(-2, 2, (B, n)))
-    kw = dict(m=4, pgtol=1e-7, factr=10.0, max_iter=400)
-    cfg = LbfgsbConfig(**kw)
-    oracle = make_oracle(fq, data=(Q,))
-    ref = jax.vmap(lambda xi, l, u: lbfgsb_minimize(oracle, xi, l, u, cfg))(
-        x0, lo, hi)
-    for solve, tag in ((lbfgsb_solve_fused, "lane-last"),
-                       (lbfgsb_solve_fused_tall, "tall")):
-        r = solve(fq, x0, lo, hi, consts=(Q,), tile=4, interpret=True, **kw)
-        x = np.asarray(r.x)
-        assert np.isfinite(x).all(), tag
-        assert (x >= np.asarray(lo) - 1e-10).all(), tag
-        assert (x <= np.asarray(hi) + 1e-10).all(), tag
-        np.testing.assert_allclose(x, np.asarray(ref.x), atol=2e-5,
-                                   err_msg=f"{tag} seed={seed}")
+    Q_np = (q * np.logspace(0, 2, n)) @ q.T
+    lo = np.where(rng.rand(B, n) < 0.35, -np.inf,
+                  -np.sort(rng.uniform(0.1, 2, (B, n)), axis=1))
+    hi = np.where(rng.rand(B, n) < 0.35, np.inf,
+                  np.sort(rng.uniform(0.2, 2, (B, n)), axis=1))
+    x0 = rng.uniform(-2, 2, (B, n))
+    r = ost.minimize(_fq_perlane, jnp.asarray(x0), method="lbfgsb",
+                     bounds=(jnp.asarray(lo), jnp.asarray(hi)),
+                     data=(jnp.asarray(Q_np),), m=4, pgtol=1e-7,
+                     factr=10.0, max_iter=400)
+    x = np.asarray(r.x)
+    assert np.isfinite(x).all()
+    assert (x >= lo - 1e-10).all() and (x <= hi + 1e-10).all()
+    for i in range(B):
+        x_ref = fmin_l_bfgs_b(
+            lambda v: (0.5 * v @ Q_np @ v, Q_np @ v), x0[i],
+            bounds=[(None if np.isinf(a) else a, None if np.isinf(b) else b)
+                    for a, b in zip(lo[i], hi[i])],
+            m=10, factr=10.0, pgtol=1e-10)[0]
+        np.testing.assert_allclose(x[i], x_ref, atol=2e-5,
+                                   err_msg=f"lane {i} seed={seed}")

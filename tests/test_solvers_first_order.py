@@ -252,7 +252,7 @@ def test_spg_alternate_bb_closes_f32_cycling_tail():
     full = np.random.RandomState(3).uniform(-2, 2, (2048, n))
     xb = jnp.asarray(full[[77, 194, 213, 250]], jnp.float32)
 
-    kw = dict(bounds=(lo, hi), max_iter=1000, max_iter_ls=30, fused=False)
+    kw = dict(bounds=(lo, hi), max_iter=1000, max_iter_ls=30)
     r_ref = solvers.batch_minimize(
         solvers.SpectralProjectedGradient(grad_tol=1e-4), ls.GLLQuadratic(),
         oracle, xb, **kw)
@@ -266,10 +266,10 @@ def test_spg_alternate_bb_closes_f32_cycling_tail():
     assert (np.asarray(r_abb.pg_norm) <= 1e-4).all()
 
 
-def test_spg_alternate_bb_fused_matches_unfused():
-    """The fused _SPGSpec's alternate-BB path (float parity scratch row)
-    must reproduce the unfused trajectories (interpret mode)."""
-    from optimization_solvers_tpu.ops.pallas_driver import fused_minimize
+def test_spg_alternate_bb_lockstep_matches_single():
+    """The alternate-BB path in the lockstep batched driver must reproduce
+    the single-instance trajectories lane for lane in f32."""
+    import jax
 
     n = 16
     d = jnp.asarray(np.logspace(0, 2, n), jnp.float32)
@@ -283,23 +283,25 @@ def test_spg_alternate_bb_fused_matches_unfused():
                      jnp.float32)
     m = solvers.SpectralProjectedGradient(grad_tol=1e-5,
                                           bb_variant="alternate")
-    r_u = solvers.batch_minimize(
-        m, ls.GLLQuadratic(), make_oracle(quad, data=(d,)), x0,
-        bounds=(lo, hi), max_iter=2000, max_iter_ls=30, fused=False)
-    r_f = fused_minimize(
-        m, ls.GLLQuadratic(), quad, x0, lo, hi, consts=(d,),
-        max_iter=2000, max_iter_ls=30, tile=16, interpret=True)
-    # BB dynamics are chaotic: fused/unfused f32 reduction orders diverge
-    # in iteration COUNT (~±10%) while agreeing semantically — assert the
-    # semantic invariants (both converge, both certify pg, same optimum)
-    np.testing.assert_array_equal(np.asarray(r_f.status),
-                                  np.asarray(r_u.status))
-    assert (np.asarray(r_f.status) == 1).all()
-    assert (np.asarray(r_f.pg_norm) <= 1e-5).all()
-    np.testing.assert_allclose(np.asarray(r_f.x), np.asarray(r_u.x),
+    oracle = make_oracle(quad, data=(d,))
+    r_l = solvers.batch_minimize(
+        m, ls.GLLQuadratic(), oracle, x0, bounds=(lo, hi), max_iter=2000,
+        max_iter_ls=30)
+    r_s = jax.jit(jax.vmap(lambda x: solvers.minimize(
+        m, ls.GLLQuadratic(), oracle, x, bounds=(lo, hi), max_iter=2000,
+        max_iter_ls=30)))(x0)
+    # BB dynamics are chaotic: the two compiled programs may sum in other
+    # orders and part in iteration COUNT while agreeing semantically —
+    # assert the semantic invariants (both converge, both certify pg,
+    # same optimum)
+    np.testing.assert_array_equal(np.asarray(r_l.status),
+                                  np.asarray(r_s.status))
+    assert (np.asarray(r_l.status) == 1).all()
+    assert (np.asarray(r_l.pg_norm) <= 1e-5).all()
+    np.testing.assert_allclose(np.asarray(r_l.x), np.asarray(r_s.x),
                                atol=1e-5)
-    assert np.allclose(np.asarray(r_f.iterations),
-                       np.asarray(r_u.iterations), rtol=0.4)
+    assert np.allclose(np.asarray(r_l.iterations),
+                       np.asarray(r_s.iterations), rtol=0.4)
 
 
 def test_spg_bb_variant_validated():

@@ -109,11 +109,11 @@ def test_spn_precond_bb_breaks_lambda_freeze():
 
     r_ref = solvers.batch_minimize(
         solvers.SpectralProjectedNewton(grad_tol=1e-6),
-        ls.BackTrackingB(), oracle, x0, bounds=(lo, hi), fused=False,
+        ls.BackTrackingB(), oracle, x0, bounds=(lo, hi),
         max_iter=60, max_iter_ls=30)
     r_pbb = solvers.batch_minimize(
         solvers.SpectralProjectedNewton(grad_tol=1e-6, precond_bb=True),
-        ls.BackTrackingB(), oracle, x0, bounds=(lo, hi), fused=False,
+        ls.BackTrackingB(), oracle, x0, bounds=(lo, hi),
         max_iter=60, max_iter_ls=30)
     st_ref = np.asarray(r_ref.status)
     st_pbb = np.asarray(r_pbb.status)
@@ -125,28 +125,25 @@ def test_spn_precond_bb_breaks_lambda_freeze():
     assert (st_ref == int(Status.CONVERGED)).mean() < 0.5
 
 
-def test_spn_precond_bb_fused_matches_unfused():
-    from optimization_solvers_tpu.ops.pallas_driver import fused_minimize
+def test_spn_precond_bb_lockstep_matches_single():
+    import jax
     import numpy as np2
 
     n, B = 8, 16
     d = jnp.asarray(np2.linspace(1.0, 12.0, n))
-
-    def quadc(x, dd):
-        return 0.5 * jnp.sum(dd * x * x)
-
-    def quad(x):
-        return 0.5 * jnp.sum(d * x * x)
-
     lo, hi = jnp.full(n, -1.5), jnp.full(n, 2.5)
     x0 = jnp.asarray(np2.random.RandomState(1).uniform(-1.4, 2.4, (B, n)))
     m = solvers.SpectralProjectedNewton(grad_tol=1e-6, precond_bb=True)
-    r_u = solvers.batch_minimize(
-        m, ls.BackTrackingB(), make_oracle(quad, with_hessian=True), x0,
-        bounds=(lo, hi), fused=False, max_iter=60, max_iter_ls=30)
-    r_f = fused_minimize(
-        m, ls.BackTrackingB(), quadc, x0, lower=lo, upper=hi, consts=(d,),
-        max_iter=60, max_iter_ls=30, tile=8, interpret=True)
-    assert (np.asarray(r_f.status) == int(Status.CONVERGED)).all()
+    oracle = make_oracle(lambda x, dd: 0.5 * jnp.sum(dd * x * x), data=(d,),
+                         with_hessian=True)
+    r_l = solvers.batch_minimize(
+        m, ls.BackTrackingB(), oracle, x0, bounds=(lo, hi), max_iter=60,
+        max_iter_ls=30)
+    r_s = jax.jit(jax.vmap(lambda x: solvers.minimize(
+        m, ls.BackTrackingB(), oracle, x, bounds=(lo, hi), max_iter=60,
+        max_iter_ls=30)))(x0)
+    assert (np.asarray(r_l.status) == int(Status.CONVERGED)).all()
+    np.testing.assert_array_equal(np.asarray(r_l.iterations),
+                                  np.asarray(r_s.iterations))
     np.testing.assert_allclose(
-        np.asarray(r_f.x), np.asarray(r_u.x), atol=1e-8)
+        np.asarray(r_l.x), np.asarray(r_s.x), atol=1e-8)

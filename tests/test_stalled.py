@@ -5,7 +5,7 @@ The reference reports plain success when the iterate stops moving even if
 the gradient test never passed (``bfgs.rs:64-76`` / ``bfgs_b.rs:92-104``);
 ``SolveResult.pg_norm`` made those lanes *measurable* (round 3) and
 ``Status.STALLED`` now makes them *identifiable from the status alone* —
-on the unfused, lockstep, and fused paths.  The reference-parity API layer
+on the single-instance and lockstep paths.  The reference-parity API layer
 (api.py) still treats the exit as success, exactly like the reference.
 """
 
@@ -17,7 +17,6 @@ from optimization_solvers_tpu import linesearch as ls, solvers
 from optimization_solvers_tpu.core.numerics import box_projection
 from optimization_solvers_tpu.core.oracle import make_oracle
 from optimization_solvers_tpu.core.types import Status
-from optimization_solvers_tpu.ops.pallas_driver import fused_minimize
 
 
 def _stall_problem(seed=47, n=5):
@@ -63,17 +62,17 @@ def test_stalled_lockstep_batch_and_summary():
     xb = jnp.stack([x0, x0 + 0.01])
     res = solvers.batch_minimize(
         solvers.BFGSB(tol=1e-7), ls.BackTrackingB(), make_oracle(f), xb,
-        bounds=bounds, fused=False, max_iter=3000, max_iter_ls=40)
+        bounds=bounds, max_iter=3000, max_iter_ls=40)
     st = np.asarray(res.status)
     assert int(st[0]) == int(Status.STALLED)
     stats = summarize(res)
     assert stats["stalled"] == int((st == int(Status.STALLED)).sum()) >= 1
 
 
-def test_stalled_fused_parity_interpret():
+def test_stalled_lockstep_data_oracle_parity():
     f, x0, bounds = _stall_problem()
-    # problem data as explicit consts so the objective crosses the
-    # pallas_call boundary (no closure captures)
+    # the same problem with its arrays as explicit problem data: every
+    # lane of an identical-start batch must stall like the closure form
     rng = np.random.RandomState(47)
     A = rng.randn(5, 5)
     Hj = jnp.asarray(A @ A.T + 5 * np.eye(5))
@@ -83,10 +82,10 @@ def test_stalled_fused_parity_interpret():
         return 0.5 * x @ (H @ x) - b @ x
 
     xb = jnp.broadcast_to(x0, (8, x0.shape[0]))
-    res = fused_minimize(
-        solvers.BFGSB(tol=1e-7), ls.BackTrackingB(), f_c, xb,
-        bounds[0], bounds[1], consts=(Hj, bj),
-        max_iter=3000, max_iter_ls=40, tile=8, interpret=True)
+    res = solvers.batch_minimize(
+        solvers.BFGSB(tol=1e-7), ls.BackTrackingB(),
+        make_oracle(f_c, data=(Hj, bj)), xb, bounds=bounds,
+        max_iter=3000, max_iter_ls=40)
     assert (np.asarray(res.status) == int(Status.STALLED)).all()
     assert (np.asarray(res.pg_norm) > 1e-4).all()
 

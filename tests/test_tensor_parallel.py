@@ -97,7 +97,7 @@ def test_tp_batched_minimize():
         bounds=bounds, max_iter=2000)
     r_ref = solvers.batch_minimize(
         method, ls.GLLQuadratic(), oracle, x0, bounds=bounds,
-        max_iter=2000, fused=False)
+        max_iter=2000)
 
     assert bool(jnp.all(r_tp.status == 1))
     np.testing.assert_allclose(
